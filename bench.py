@@ -13,7 +13,8 @@ EuRoC-size (752x480) image (reference call stack SURVEY.md §3.1):
 Baseline: the reference runs EuRoC real time on CPU at the 20 Hz camera
 rate (docs/en/benchmark.md), so vs_baseline = frames_per_s / 20.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",
+"device"}.
 """
 
 import json
@@ -25,11 +26,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from xrslam_tpu import runtime
     from xrslam_tpu.estimation.solver import SolveOptions, solve_window
     from xrslam_tpu.frontend import image as img_ops
     from xrslam_tpu.frontend import klt
     from __graft_entry__ import _problem
 
+    runtime.configure()
     H, W, C = 480, 752, 256
     rng = np.random.default_rng(0)
     base = np.kron(rng.uniform(0, 1, (H // 4, W // 4)), np.ones((4, 4)))
@@ -69,11 +72,14 @@ def main():
     dt = time.perf_counter() - t0
 
     frames_per_s = n_reps / dt
+    dev = jax.devices()[0]
     print(json.dumps({
         "metric": "vio_frames_per_s",
         "value": round(frames_per_s, 2),
         "unit": "frames/s (752x480, 256 kp KLT fwd+bwd, GFTT, K=10/L=256 10-iter BA)",
         "vs_baseline": round(frames_per_s / 20.0, 2),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

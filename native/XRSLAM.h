@@ -4,7 +4,7 @@
  * xrslam-interface/include/XRSLAM.h:195-230 — XRSLAMCreate /
  * XRSLAMPushSensorData / XRSLAMRunOneFrame / XRSLAMGetResult /
  * XRSLAMDestroy over a process-wide engine) so that players, ROS nodes
- * and mobile shells can link against the TPU-native engine the same way
+ * and mobile shells can link against the JAX engine the same way
  * they link against the reference's C++ core. The implementation
  * (xr_capi.cpp) embeds CPython and drives xrslam_tpu.api.XRSLAM.
  *

@@ -1,4 +1,4 @@
-// XRSLAM C ABI over the TPU-native engine (embedded CPython).
+// XRSLAM C ABI over the JAX engine (embedded CPython).
 //
 // Exports the reference's flat C surface (reference:
 // xrslam-interface/include/XRSLAM.h:195-230,

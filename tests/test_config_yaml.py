@@ -194,3 +194,74 @@ def test_iphone_mobile_config_pair_loads():
                                [0.033366085092802436, 0.009419070514053628,
                                 -0.006188374507046947])
     np.testing.assert_allclose(cfg.keypoint_noise_cov, np.eye(2) * 0.5)
+
+
+# --------------------------------------------------------------------------
+# the stdlib OpenCV-YAML loader against PyYAML
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rendered_pair(tmp_path_factory):
+    from xrslam_tpu.tools.make_dataset import render_dataset
+
+    d = str(tmp_path_factory.mktemp("yaml_pair"))
+    paths = render_dataset(d, n_frames=2, n_landmarks=20, width=64,
+                           height=48, focal=60.0)
+    return {"rendered-slam": paths["slam_yaml"],
+            "rendered-device": paths["device_yaml"]}
+
+
+def _pyyaml_normalized(text):
+    """PyYAML's reading, with yaml-cpp's scalar rule applied: PyYAML
+    (YAML 1.1) leaves unsigned exponents such as "1.0e6" as strings,
+    the reference's yaml-cpp reads them as floats."""
+    import re
+
+    yaml = pytest.importorskip("yaml")
+    num = re.compile(r"[-+]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][-+]?[0-9]+)?$")
+
+    def norm(x):
+        if isinstance(x, dict):
+            return {k: norm(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [norm(v) for v in x]
+        if isinstance(x, str) and num.match(x):
+            return float(x)
+        return x
+
+    return norm(yaml.safe_load(text.split("\n", 1)[1]))
+
+
+@pytest.mark.parametrize("name", [
+    "euroc_slam.yaml", "euroc_sensor.yaml", "iphone_slam.yaml",
+    "iphone12_sensor.yaml", "rendered-slam", "rendered-device"])
+def test_opencv_yaml_loader_matches_pyyaml(name, rendered_pair):
+    from xrslam_tpu.config import parse_opencv_yaml
+
+    path = rendered_pair.get(name) or os.path.join(REPO, "configs", name)
+    with open(path) as f:
+        text = f.read()
+    ours = parse_opencv_yaml(text, path)
+    assert ours == _pyyaml_normalized(text)
+    assert ours, path
+
+
+def test_opencv_yaml_subset_and_rejects():
+    from xrslam_tpu.config import parse_opencv_yaml
+
+    text = ("%YAML:1.0\n"
+            "# header comment\n"
+            "a:\n"
+            "  b: [1, 2.5,\n"
+            "      -3e-2]   # trailing comment\n"
+            "  c: \"x # not a comment\"\n"
+            "  d:\n"
+            "e: true\n"
+            "f: 1.0e6\n")
+    assert parse_opencv_yaml(text) == {
+        "a": {"b": [1, 2.5, -0.03], "c": "x # not a comment", "d": None},
+        "e": True, "f": 1.0e6}
+    for bad in ("a:\n  - 1\n", "a: [1, 2\n", "a: [[1], 2]\n", "just text\n",
+                "a: 1\n  b: 2\n", "a:\n    b: 1\n  c: 2\n"):
+        with pytest.raises(ValueError):
+            parse_opencv_yaml(bad)

@@ -1,8 +1,8 @@
 """f32 end-to-end accuracy gate.
 
-The TPU runs float32 (x64 unavailable); every other test pins CPU +
-float64, so this is the one gate covering the numerics configuration
-the chip actually executes. Runs the full image pipeline at CPU-f32 in
+The accelerator path runs float32 (x64 off); every other test pins
+CPU + float64, so this is the one gate covering the numerics
+configuration the card executes. Runs the full image pipeline at CPU-f32 in
 a subprocess (the suite's conftest enables x64 process-wide) and holds
 it to the CPU-f64 accuracy bound of tests/test_image_e2e.py.
 

@@ -1,6 +1,6 @@
-"""xrslam_tpu — a TPU-native visual-inertial SLAM framework.
+"""xrslam_tpu — a JAX visual-inertial SLAM framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 openxrlab/xrslam (RD-VIO): pyramidal-KLT feature tracking, IMU
 preintegration, sliding-window visual-inertial bundle adjustment with
 marginalization priors, subframe/keyframe management, IMU-PARSAC

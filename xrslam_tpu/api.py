@@ -23,7 +23,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import __version__
+from . import __version__, runtime
 from .config import Config, load_config
 from .core import nputil
 from .core.detail import VIOPipeline
@@ -91,6 +91,7 @@ class XRSLAM:
                  device_config_path: Optional[str] = None,
                  config: Optional[Config] = None,
                  capacity: int = 256):
+        runtime.configure()
         if config is None:
             if slam_config_path and device_config_path:
                 config = load_config(slam_config_path, device_config_path)

@@ -6,7 +6,8 @@ the C boundary, so the shim needs nothing beyond the stable CPython
 object protocol. Together they export the reference's C surface
 (reference: xrslam-interface/include/XRSLAM.h:195-230 and the singleton
 XRSLAMManager, xrslam-interface/src/XRSLAMManager.{h,cpp}) over the
-TPU-native engine.
+JAX engine. Embedded interpreters inherit only the environment, so
+`JAX_PLATFORMS=cpu your_c_program` selects the backend as usual.
 
 All returns are plain tuples/bytes/str. Pose tuples are
 (qx, qy, qz, qw, px, py, pz, t) — the C ABI's [x,y,z,w] order.
@@ -14,22 +15,9 @@ All returns are plain tuples/bytes/str. Pose tuples are
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import numpy as np
-
-# honor an explicit JAX_PLATFORMS environment choice even when a
-# site-wide customization rewrote the in-process default (embedded
-# interpreters inherit only the environment; this keeps
-# `JAX_PLATFORMS=cpu your_c_program` working as documented)
-if os.environ.get("JAX_PLATFORMS"):
-    try:
-        import jax
-
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-    except Exception:
-        pass
 
 from .api import XRSLAM, ResultType, SensorType
 

@@ -115,7 +115,7 @@ def logmap(q: np.ndarray) -> np.ndarray:
 def quat_normalize(q: np.ndarray) -> np.ndarray:
     # NOTE: keep this exact numpy formulation. A scalar-math variant
     # (math.sqrt of the sum of squares) differs in the last f32 bits
-    # (~6e-8) from q/np.linalg.norm(q); on the f32 TPU pipeline that
+    # (~6e-8) from q/np.linalg.norm(q); on the f32 device pipeline that
     # perturbation in the written-back window states is enough to send
     # the rendered-sequence ATE from 0.084 to 8.7 (measured round 5) —
     # the sliding-window estimate is knife-edge sensitive to the host

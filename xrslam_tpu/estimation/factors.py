@@ -53,8 +53,8 @@ def reproj_residual_jac(state: WindowState, data: WindowData,
                         mode: str = "rev"):
     """All (K,L) reprojection residuals + Jacobian blocks.
 
-    `mode`: "rev" (2 VJP sweeps — faster on TPU, the residual chain is
-    latency-bound) or "fwd" (13 JVP tangents). Reverse-mode AD produces
+    `mode`: "rev" (2 VJP sweeps, the default) or "fwd" (13 JVP
+    tangents). Reverse-mode AD produces
     WRONG Jacobians inside shard_map in JAX 0.9 (the primal is exact,
     the cotangent propagation across the manual-axes boundary is not),
     so sharded solves must pass mode="fwd" — solver.assemble does this

@@ -16,7 +16,7 @@ xrslam/src/xrslam/estimation/ceres/marginalization_factor.h:74-469):
   produce the new (sqrt_inv_cov, infovec) pair (:437-452); linearization
   points are the current states of the remaining frames (:455-466).
 
-TPU-native form: everything is computed on the fixed-shape (K, L)
+Array form: everything is computed on the fixed-shape (K, L)
 window arrays with masks; the frame shift (victim slot removed, arrays
 rolled left) happens here so the pipeline's array layout stays
 "slot 0 = oldest frame".

@@ -14,8 +14,8 @@ xrslam-extra/src/xrslam/extra/opencv_image.cpp):
     (utility/poisson_disk_filter.h, opencv_image.cpp:55-66)
 
 All kernels are jit-compatible with static shapes; keypoint sets are
-fixed-capacity arrays + validity masks. Images are float32 (the MXU/VPU
-native path) scaled to [0,255].
+fixed-capacity arrays + validity masks. Images are float32 scaled to
+[0,255].
 """
 
 from __future__ import annotations
@@ -44,9 +44,8 @@ def clahe(image: jnp.ndarray, clip_limit: float = 6.0, tiles_x: int = 8, tiles_y
     area = th * tw
     img_u8 = jnp.clip(image, 0, 255).astype(jnp.int32)
 
-    # per-tile histogram by chunked equality counting (a scatter-add
-    # histogram drags a gather/scatter layout through the whole fusion;
-    # comparisons are pure VPU work)
+    # per-tile histogram by chunked equality counting (no scatter-add:
+    # comparisons and reductions fuse into elementwise work)
     tiled = img_u8.reshape(tiles_y, th, tiles_x, tw)
 
     def hist_chunk(c):
@@ -66,11 +65,9 @@ def clahe(image: jnp.ndarray, clip_limit: float = 6.0, tiles_x: int = 8, tiles_y
     lut = jnp.clip(jnp.round(cdf * (255.0 / area)), 0, 255)  # (ty,tx,256)
 
     # bilinear interpolation between the 4 neighboring tile LUTs,
-    # evaluated WITHOUT per-pixel gathers: a per-pixel LUT gather makes
-    # XLA pick a gather-oriented output layout whose relayout in any
-    # downstream conv costs ~17 ms/frame on TPU. Instead the
-    # interpolated LUT is materialized in 16-bin chunks (H,W,16) and
-    # blended against equality masks — pure VPU ops.
+    # evaluated without per-pixel gathers: the interpolated LUT is
+    # materialized in 16-bin chunks (H,W,16) and blended against
+    # equality masks.
     fy = (jnp.arange(H) + 0.5) / th - 0.5
     fx = (jnp.arange(W) + 0.5) / tw - 0.5
     y0 = jnp.clip(jnp.floor(fy).astype(jnp.int32), 0, tiles_y - 1)
@@ -108,14 +105,11 @@ _GAUSS5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0], dtype=np.float32) / 16.0
 def _sep_filter(img: jnp.ndarray, kx: jnp.ndarray, ky: jnp.ndarray) -> jnp.ndarray:
     """Separable 2D correlation with replicate border (H,W).
 
-    Shift-and-add form: single-channel conv_general_dilated calls on
-    TPU cost ~1.7 ms EACH at 752×480/HIGHEST (no channel parallelism,
-    multi-pass precision emulation) — the four of them in a Scharr pair
-    were 6.4 ms, >4× the cost of an entire LK tracking level. Static
-    shifted slices + weighted adds compute the identical f32 result
-    (exact multiplies, no bf16 quantization — the precision the
-    sub-pixel LK iteration needs, see klt.MM_BF16 note) in ~0.8 ms.
-    Zero taps (e.g. the derivative kernel's center) are skipped."""
+    Shift-and-add form: static shifted slices + weighted adds compute
+    the f32 result with exact multiplies and no reduced-precision
+    matmul/conv path — the precision the sub-pixel LK iteration needs
+    (see the klt.MM_BF16 note). Zero taps (e.g. the derivative kernel's
+    center) are skipped."""
     rx, ry = kx.shape[0] // 2, ky.shape[0] // 2
     H, W = img.shape
     p = jnp.pad(img, ((ry, ry), (rx, rx)), mode="edge")
@@ -184,8 +178,7 @@ def harris_response(img: jnp.ndarray, k: float = 0.04, block_size: int = 3) -> j
     cancel in GFTT's relative quality threshold.
 
     Two multi-channel 3×3 convs (gradients; box sums) instead of ten
-    separable 1D passes — conv call count, not FLOPs, is what this
-    stage pays for on TPU."""
+    separable 1D passes, both at HIGHEST precision."""
     dt = img.dtype
     # channel conv #1: sobel x & y in one call
     kx2d = jnp.outer(_SOBEL_S, _SOBEL_D).astype(dt)   # d/dx: smooth rows, diff cols
@@ -230,13 +223,7 @@ def _gftt_score(img: jnp.ndarray, quality_level: float, border: int, k: float):
 
 @partial(jax.jit, static_argnames=("max_candidates", "W"))
 def _gftt_select(score: jnp.ndarray, max_candidates: int, W: int):
-    if jax.default_backend() == "tpu":
-        # approx_max_k: TPU-native partial reduction — exact top_k over
-        # H·W pixels costs several ms, approx recall ~0.95 is plenty
-        # for corner candidates that then pass a spacing filter
-        top, idx = jax.lax.approx_max_k(score, max_candidates)
-    else:
-        top, idx = jax.lax.top_k(score, max_candidates)
+    top, idx = jax.lax.top_k(score, max_candidates)
     pts = jnp.stack([(idx % W).astype(jnp.float32), (idx // W).astype(jnp.float32)], axis=-1)
     valid = jnp.isfinite(top)
     return pts, jnp.where(valid, top, 0.0), valid
@@ -254,9 +241,7 @@ def gftt_candidates(
 
     Returns (pts (N,2) float32 xy, response (N,), valid (N,)).
     Border rejection (20 px) matches opencv_image.cpp:60-66.
-
-    Deliberately TWO jit stages (score; top-k select): fused into one
-    executable the TPU compiler schedules the pipeline ~2x slower.
+    Two jit stages (score; top-k select).
     """
     score = _gftt_score(img, quality_level, border, k)
     return _gftt_select(score, max_candidates, img.shape[1])

@@ -7,10 +7,10 @@ eps 0.01, OPTFLOW_USE_INITIAL_FLOW (rotation-predicted seeds),
 forward + backward pass with a 0.5 px reverse-consistency gate, 20 px
 border rejection, and a rows/4 max-displacement gate.
 
-TPU-native design: all keypoints advance in lockstep as one batched
-computation per pyramid level (vmap over points, `lax.fori_loop` for
-the iterations); convergence is handled with per-point masks, not
-early exits. Sampling is bilinear (OpenCV's interpolation for LK).
+All keypoints advance in lockstep as one batched computation per
+pyramid level (vmap over points, `lax.fori_loop` for the iterations);
+convergence is handled with per-point masks, not early exits. Sampling
+is bilinear (OpenCV's interpolation for LK).
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def _sample_window(img: jnp.ndarray, center: jnp.ndarray, win: int) -> jnp.ndarr
 
     One contiguous dynamic_slice of (win+1,win+1) plus four shifted
     static slices — the whole window shares a single fractional offset,
-    so per-tap gathers (catastrophic on TPU: hundreds of scalar gathers
-    per point) collapse to one block load and VPU blends. dynamic_slice
+    so per-tap gathers (hundreds of scalar gathers per point) collapse
+    to one block load and elementwise blends. dynamic_slice
     clamps the block to the image; out-of-window points are rejected by
     the caller's border gates, matching the clamped-tap semantics of
     cv::calcOpticalFlowPyrLK at borders closely enough."""
@@ -136,16 +136,14 @@ def _track_level(
     return g, ok, (err if final else jnp.zeros_like(err))
 
 
-SEARCH = 64  # search-block side of the MXU level tracker
+SEARCH = 64  # search-block side of the matmul level tracker
 
 # Precision of the selector·block·selectorᵀ window-sampling einsums of
-# _track_level_mxu. Default: float32 operands at HIGHEST precision
-# (3-pass bf16 on the MXU). Measured on TPU v5e (120-frame synthetic
-# drive, r3): the bf16 fast path loses ~10% of the KLT survivors per
-# frame to reverse-consistency failures, which collapses track length
-# and delays VI initialization by ~60 frames — the 2x MXU rate is not
-# worth it on the default path. XR_KLT_MM=bf16 re-enables the fast path
-# for A/B (tools/ab_lk_backend.py).
+# _track_level_mxu. Default: float32 operands at HIGHEST precision.
+# bf16 sampling loses ~10% of the KLT survivors per frame to
+# reverse-consistency failures, which collapses track length and delays
+# VI initialization by ~60 frames. XR_KLT_MM=bf16 re-enables the fast
+# path for A/B (tools/ab_klt_precision.py).
 import os as _os
 
 _MM_MODE = _os.environ.get("XR_KLT_MM", "f32")
@@ -153,8 +151,7 @@ MM_BF16 = _MM_MODE == "bf16"
 # XR_KLT_MM=mixed: bf16 sampling einsums on the UPPER pyramid levels
 # (they only seed the next level; the 0.5 px reverse-consistency gate
 # never sees them) + f32/HIGHEST at level 0 where sub-pixel accuracy is
-# decided — the precision split suggested by the round-3 A/B where full
-# bf16 lost ~10% of tracks/frame (AB_LK_r03.json).
+# decided.
 MM_MIXED = _MM_MODE == "mixed"
 
 # Run the reverse-consistency pass at pyramid level 0 only (see
@@ -171,11 +168,11 @@ def _track_level_mxu(
     win: int, iters: int, eps: float, min_eig_floor: float = 1e-4,
     final: bool = False, search: int = SEARCH, force_bf16: bool = False,
 ):
-    """TPU-fast level tracker: per point, ONE (SEARCH,SEARCH) block is
+    """Gather-free level tracker: per point, ONE (SEARCH,SEARCH) block is
     sliced around the initial guess, then every LK iteration samples its
     (win,win) window as R·S·Cᵀ where R/C are hat-function (linear
     interpolation) selector matrices — bilinear sampling as two batched
-    matmuls on the MXU, zero gathers inside the iteration loop. The
+    matmuls, zero gathers inside the iteration loop. The
     iterate is confined to its search block; points that would drift
     further are the ones the displacement/round-trip gates reject
     anyway (reference opencv_image.cpp:117-141)."""
@@ -230,9 +227,9 @@ def _track_level_mxu(
 
     mm_dt = jnp.bfloat16 if ((MM_BF16 or force_bf16)
                              and dt == jnp.float32) else dt
-    # HIGHEST: true-f32 matmul passes when operands are f32 — the TPU
-    # einsum default multiplies in bf16, which is exactly the precision
-    # loss the f32 default above exists to avoid
+    # HIGHEST: true-f32 matmul passes when operands are f32 — the
+    # default f32 matmul precision may multiply in TF32/bf16, which is
+    # exactly the precision loss the f32 default above exists to avoid
     mm_prec = (jax.lax.Precision.DEFAULT if mm_dt == jnp.bfloat16
                else jax.lax.Precision.HIGH if _MM_MODE == "high"
                else jax.lax.Precision.HIGHEST)
@@ -266,9 +263,7 @@ def _track_level_mxu(
         i, lx, ly, conv = carry
         # UNROLL LK steps per loop trip: identical iterates (converged
         # points never move; the eps check runs per step), but the
-        # sequential while_loop carries fewer round trips of loop
-        # overhead — per-iteration dispatch cost, not FLOPs, dominates
-        # this kernel (AB_KLT_r04.json)
+        # sequential while_loop carries fewer trips of loop overhead
         for _ in range(UNROLL):
             lx, ly, conv = step(lx, ly, conv)
         return i + UNROLL, lx, ly, conv
@@ -304,19 +299,12 @@ def _track_level_mxu(
 
 
 def _lk_backend() -> str:
-    """Level-tracker backend: "mxu" (hat-selector matmuls — the winner
-    of the TPU A/B, see bench.py), "pallas" (klt_pallas per-point VMEM
-    kernel, kept A/B-able via XR_LK_BACKEND=pallas), or "xla" (the
-    gather-based path, CPU default)."""
+    """Level-tracker backend: "xla" (the gather-based path, default on
+    every platform) or "mxu" (hat-selector matmuls, selectable with
+    XR_LK_BACKEND=mxu for A/B)."""
     import os
 
-    forced = os.environ.get("XR_LK_BACKEND")
-    if forced in ("mxu", "pallas", "xla"):
-        return forced
-    try:
-        return "mxu" if jax.default_backend() == "tpu" else "xla"
-    except Exception:  # pragma: no cover
-        return "xla"
+    return "mxu" if os.environ.get("XR_LK_BACKEND") == "mxu" else "xla"
 
 
 def lk_flow(
@@ -325,9 +313,10 @@ def lk_flow(
     search_top: int = SEARCH,
 ):
     """Multi-level forward LK. pts are base-level pixel coords (N,2);
-    `pts_init` seeds the flow (OPTFLOW_USE_INITIAL_FLOW). On TPU the
-    per-level refinement runs as hat-selector matmuls over a search
-    block (_track_level_mxu); elsewhere the gather-based XLA path."""
+    `pts_init` seeds the flow (OPTFLOW_USE_INITIAL_FLOW). The per-level
+    refinement runs the gather-based path (_track_level), or the
+    hat-selector matmuls over a search block (_track_level_mxu)
+    when selected by _lk_backend."""
     levels = len(prev_pyr)
     scale_top = float(2 ** (levels - 1))
     guess = pts_init / scale_top
@@ -347,18 +336,6 @@ def lk_flow(
                 search=search_top if lev == levels - 1 else 32,
                 force_bf16=(MM_MIXED and lev > 0),
             )
-        elif backend == "pallas":
-            from . import klt_pallas
-
-            guess, valid = klt_pallas.track_level_pallas(
-                prev_img, ix, iy, next_pyr[lev], pts_prev / s, guess, valid,
-                win=win, iters=iters, eps=eps, final=(lev == 0),
-            )
-            if lev == 0:
-                err = jax.vmap(
-                    lambda g, p: jnp.mean(jnp.abs(
-                        _sample_window(next_pyr[0], g, win)
-                        - _sample_window(prev_pyr[0], p, win))))(guess, pts_prev)
         else:
             guess, valid, err = _track_level(
                 prev_img, ix, iy, next_pyr[lev], pts_prev / s, guess, valid,

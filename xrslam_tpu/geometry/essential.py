@@ -1,11 +1,11 @@
-"""5-point essential matrix (Nistér) — TPU-native formulation.
+"""5-point essential matrix (Nistér) — batched formulation.
 
 reference: xrslam/src/xrslam/geometry/essential.cpp — the reference
 builds the 10×20 Gröbner polynomial system over GRevLex monomials
 (essential.cpp:9-160), Gauss-Jordan eliminates, and solves a 10×10
 action matrix with an *unsymmetric* eigendecomposition
-(essential.cpp:203-219). Unsymmetric `eig` does not exist on TPU, so we
-use an equivalent and fully-batched path:
+(essential.cpp:203-219). Unsymmetric `eig` has no batched accelerator
+lowering in JAX, so we use an equivalent and fully-batched path:
 
   1. nullspace basis E(x,y,z) = x·E1 + y·E2 + z·E3 + E4 from the 5
      correspondences (eigh of AᵀA),
@@ -268,9 +268,9 @@ def solve_essential_5pt(x1: jnp.ndarray, x2: jnp.ndarray, n_samples: int = 16):
     # Fixing the "1"-monomial coordinate m[9]=1 turns the null-vector
     # problem into a 9-var least squares C[:,:9]·m' = −C[:,9], solved by
     # normal equations — the same finite-(x,y) chart the previous
-    # eigh-based version assumed when it divided by m[9], at ~1/6 the
-    # TPU cost (batched 9×9 solve vs iterative 10×10 eigh; this kernel
-    # runs n_hyp×R times per RANSAC call and dominated the frontend).
+    # eigh-based version assumed when it divided by m[9], with a
+    # batched 9×9 solve in place of an iterative 10×10 eigh (this
+    # kernel runs n_hyp×R times per RANSAC call).
     def per_root(z):
         C = _c_of_z(polys, z)  # (...,10,10)
         A = C[..., :, :9]

@@ -2,7 +2,7 @@
 
 Reproduces the numerical behavior of the reference's Lie-algebra kernels
 (reference: xrslam/src/xrslam/geometry/lie_algebra.{h,cpp}) in a form
-suited to TPUs: every function broadcasts over arbitrary leading batch
+suited to accelerators: every function broadcasts over arbitrary leading batch
 dimensions, contains no data-dependent Python control flow, and guards
 small-angle singularities with `jnp.where`-selected Taylor expansions so
 it is jit/vmap/grad-safe.
@@ -87,7 +87,7 @@ def quat_rotate(q: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Rotate vectors v (...,3) by quaternions q (...,4).
 
     Uses the expanded 15-mul form (no matrix materialization) — cheaper
-    on the VPU than building R.
+    elementwise work than building R.
     """
     qw = q[..., 0:1]
     qv = q[..., 1:4]

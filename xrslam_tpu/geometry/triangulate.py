@@ -4,7 +4,7 @@ reference: xrslam/src/xrslam/geometry/stereo.h:74-100 (SVD nullspace of
 the stacked DLT system) and xrslam/src/xrslam/map/track.cpp:46-76
 (per-track triangulation with cheirality check over all observations).
 
-TPU note: instead of an SVD per landmark we take the nullspace as the
+Batching note: instead of an SVD per landmark we take the nullspace as the
 eigenvector of the smallest eigenvalue of AᵀA (4×4 symmetric), which
 batches cleanly with `jnp.linalg.eigh` and handles masked (unused)
 observation rows by zero-weighting them — same solution as the

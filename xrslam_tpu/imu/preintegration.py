@@ -12,7 +12,7 @@ Reproduces the math of the reference's midpoint-free Euler integrator
   U = chol(cov⁻¹)ᵀ (upper-triangular; preintegrator.cpp:97-100);
   gravity-forward state prediction (preintegrator.cpp:102-112).
 
-TPU-native differences: fixed-capacity sample buffers with dt==0
+Array-form differences: fixed-capacity sample buffers with dt==0
 padding (a dt==0 increment is an exact no-op, so masking is free inside
 the scan), and the whole integration is one jittable, vmappable scan —
 batching over windows of frames or over many sequences.
@@ -209,7 +209,7 @@ def integrate_batch(ts, ws, accs, t_end, bg, ba, noise: ImuNoise, count,
                     compute_sqrt_inv: bool = True) -> PreintDelta:
     """Vmapped `integrate` over a leading interval axis: ts (K,S),
     ws/accs (K,S,3), t_end (K,), bg/ba (K,3), count (K,). One compile
-    serves every window extraction — the batched TPU-native form."""
+    serves every window extraction — the batched form."""
     d = jax.vmap(
         lambda t, w, a, te, g, b, c: integrate(
             t, w, a, te, g, b, noise, count=c,

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..config import Config
+from . import png
 
 
 class DataType(enum.Enum):
@@ -43,14 +44,14 @@ class DataType(enum.Enum):
 def load_gray(path: str) -> np.ndarray:
     """Load an image as float32 grayscale in [0,1] (reference converts
     BGR→gray at load, euroc_dataset_reader.cpp:74-75). PNGs decode
-    through the native runtime (native/xr_host.cpp) when built; other
-    formats (and the fallback) go through PIL."""
+    through the native runtime (native/xr_host.cpp) when built, else
+    through the standard-library decoder (io/png.py); other formats
+    need PIL."""
     if path.lower().endswith(".png"):
         from .. import native
 
         out = native.png_load_gray(path)
-        if out is not None:
-            return out
+        return out if out is not None else png.load_gray(path)
     from PIL import Image
 
     with Image.open(path) as im:
@@ -271,11 +272,9 @@ class _Mav0Reader(DatasetReader):
 
     def read_depth(self):
         """(t, depth (H,W) float32 meters; 0 = invalid)."""
-        from PIL import Image
-
         t, fn = self._depths.pop(0)
         self._events.pop(0)
-        d = np.asarray(Image.open(fn), dtype=np.float32) / 1000.0
+        d = png.read(fn)[..., 0].astype(np.float32) / 1000.0
         return t, d
 
 

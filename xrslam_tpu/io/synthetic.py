@@ -214,7 +214,7 @@ def window_problem(
 ):
     """Ground-truth (WindowState, WindowData) for the given scene frames
     — the solver-level fixture used by tests, bench.py, and the graft
-    entry (dtype=float32 for the TPU compute path)."""
+    entry (dtype=float32 for the accelerator compute path)."""
     import numpy as np
 
     from ..estimation.window import MargPrior, WindowData, WindowState

@@ -9,7 +9,7 @@ fire-and-forget queries (:219-240) and periodic pose upload to `/pose`
 (:180-207).
 
 Two backends here:
-  - `MapLocalizer` — the TPU-native in-process equivalent: batched
+  - `MapLocalizer` — the in-process equivalent: batched
     RANSAC PnP (ransac/pnp.py) against a prebuilt global landmark map,
     same transform bookkeeping, no server round-trip.
   - `HttpLocalizer` — protocol-compatible client for an actual

@@ -1,13 +1,14 @@
 """ctypes bindings to the native host runtime (native/xr_host.cpp).
 
-The compute path of this framework is JAX/XLA/Pallas; this library
-covers the host-side hot paths around it — PNG decode, undistortion
+The compute path of this framework is JAX/XLA; this library covers the
+host-side hot paths around it — PNG decode, undistortion
 remap, CSV parsing, IMU stream fusion, Poisson spacing filter — which
 the reference runs through OpenCV/stdio on its worker threads.
 
-The .so builds on demand (`make -C native`); every entry point has a
-pure-Python fallback, so the package works without a toolchain —
-`available()` says which path is active.
+The .so is built from native/xr_host.cpp on first use
+(`make -C native libxr_host.so`; it is never committed); every entry
+point has a pure-Python fallback, so the package works without a
+toolchain — `available()` says which path is active.
 """
 
 from __future__ import annotations
@@ -37,10 +38,12 @@ def _load() -> Optional[ctypes.CDLL]:
         _tried = True
         if not os.path.exists(_SO) and os.path.exists(
                 os.path.join(_NATIVE_DIR, "Makefile")):
+            # only the host library: the C ABI target also needs
+            # python3-config, which a machine may lack
             try:
-                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
+                subprocess.run(["make", "-C", _NATIVE_DIR, "libxr_host.so"],
+                               check=True, capture_output=True, timeout=120)
+            except (OSError, subprocess.SubprocessError):
                 return None
         if not os.path.exists(_SO):
             return None

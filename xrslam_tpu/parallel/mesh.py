@@ -1,10 +1,11 @@
 """Device-mesh construction + multi-host initialization.
 
 The reference has no distributed backend at all (SURVEY.md §2.3); this
-is the TPU-native scale-out layer: a (data, model) mesh where the
-`data` axis shards independent sequences/windows and the `model` axis
-shards landmark columns of the BA system. Collectives ride ICI within
-a slice; multi-host runs initialize `jax.distributed` over DCN.
+is the scale-out layer: a (data, model) mesh where the `data` axis
+shards independent sequences/windows and the `model` axis shards
+landmark columns of the BA system. Every device reaches every other
+(NVLink on one host), so the mesh shape follows the algorithm alone;
+multi-host runs initialize `jax.distributed`.
 """
 
 from __future__ import annotations
@@ -40,21 +41,18 @@ def make_mesh(n_devices: Optional[int] = None,
 def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """Multi-host (DCN) initialization — jax.distributed. No-op when
+    """Multi-host initialization — jax.distributed. No-op when
     the process is already initialized; any real rendezvous failure
     propagates (a silently-single-host "distributed" run would compute
     wrong psums, so failing loud is the only safe behavior).
 
-    On the CPU backend, cross-process collectives need jaxlib's gloo
-    implementation; select it before the backend is instantiated."""
+    On a CPU-only platform, cross-process collectives need jaxlib's
+    gloo implementation; select it before the backend is instantiated."""
     # NB: inspect the *config* (not jax.default_backend(), which would
     # instantiate the backend before jax.distributed.initialize runs)
-    platforms = str(getattr(jax.config, "jax_platforms", "") or "")
-    if "tpu" not in platforms:
-        try:
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:
-            pass  # flag absent in this jaxlib / backend already fixed
+    platforms = str(jax.config.jax_platforms or "")
+    if platforms.split(",") == ["cpu"]:
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
     try:
         jax.distributed.initialize(coordinator_address=coordinator,
                                    num_processes=num_processes,

@@ -9,7 +9,7 @@ math (estimation/solver.py) runs SPMD:
   - `model` mesh axis: landmark columns of the system are sharded;
     each device assembles the reprojection normal equations for its
     landmark shard, the frame-block Hessian/gradient and the Schur
-    reduction term Hfl·Hll⁻¹·Hflᵀ are psum-reduced over ICI, the tiny
+    reduction term Hfl·Hll⁻¹·Hflᵀ are psum-reduced over the mesh, the tiny
     reduced (K·15)² camera solve is replicated, and landmark
     back-substitution stays shard-local (zero communication).
   - `data` mesh axis: independent windows (multi-sequence evaluation,

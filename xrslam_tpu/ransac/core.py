@@ -9,7 +9,7 @@ Determinism: counter-based `jax.random` keys replace the reference's
 (config.cpp:66) — seeds are explicit everywhere.
 
 The adaptive iteration bound (ransac.h:72-77) is a *latency* trick for
-sequential hardware; on TPU all hypotheses evaluate in parallel, so the
+sequential hardware; here all hypotheses evaluate in parallel, so the
 static hypothesis count plays the role of max_iteration. With the
 reference's defaults (confidence .999, 5-dof model, inlier ratio ≥.5)
 the adaptive bound is ≈ log(1e-3)/log(1-.5^5) ≈ 218, so the default 256

@@ -6,7 +6,7 @@ The reference calls OpenCV's EPnP on 6 points
 RANSAC/PARSAC/IMU-PARSAC with χ² thresholds 2·5.99·σ²
 (pnp.h:96-208). A 6-point DLT (SVD of the 12×12 projection-matrix
 system, R re-orthonormalized by SVD) is algebraically equivalent for
-minimal noise-free samples and maps onto batched TPU linear algebra;
+minimal noise-free samples and maps onto batched linear algebra;
 the RANSAC consensus step dominates accuracy either way.
 
 Error model (pnp.h:91-95): squared *normalized-plane* reprojection

@@ -1,10 +1,12 @@
 """A/B the KLT matmul precision modes (XR_KLT_MM: f32 / mixed / bf16)
-on rendered frames.
+of the hat-selector level tracker (XR_LK_BACKEND=mxu) on rendered
+frames.
 
 Because the precision mode is read at import time, each mode runs in a
-fresh subprocess. Metrics per mode: kernel time, forward+backward
-survivors (the 0.5 px reverse-consistency gate is what full-bf16
-measurably loses — AB_LK_r03.json), and px agreement vs the f32
+fresh subprocess, one after another (only one process holds the
+accelerator at a time). Metrics per mode: kernel time,
+forward+backward survivors (the 0.5 px reverse-consistency gate is
+what full-bf16 measurably loses), and px agreement vs the f32
 reference. Frames come from the rendered benchmark sequence (textured
 blobs + motion), not a synthetic constant shift.
 
@@ -24,14 +26,14 @@ import numpy as np
 mode = sys.argv[1]
 frame_dir = sys.argv[2]
 os.environ["XR_KLT_MM"] = mode
+os.environ["XR_LK_BACKEND"] = "mxu"
 import jax, jax.numpy as jnp
-from PIL import Image
 from xrslam_tpu.frontend import image as img_ops
 from xrslam_tpu.frontend import klt
+from xrslam_tpu.io.dataset import load_gray
 
 names = sorted(os.listdir(frame_dir))[:2]
-imgs = [np.asarray(Image.open(os.path.join(frame_dir, n)).convert("L"),
-                   dtype=np.float32) for n in names]
+imgs = [load_gray(os.path.join(frame_dir, n)) * 255.0 for n in names]
 pyr1 = img_ops.build_pyramid(jnp.asarray(imgs[0]), levels=3)
 pyr2 = img_ops.build_pyramid(jnp.asarray(imgs[1]), levels=3)
 cand, resp, cvalid = img_ops.gftt_candidates(pyr1[0], max_candidates=1024,

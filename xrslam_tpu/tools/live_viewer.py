@@ -1,10 +1,10 @@
-"""Interactive live viewer — the reference's GL visualizer, TPU-native.
+"""Interactive live viewer — the reference's GL visualizer, headless.
 
 The reference PC player opens a liteviz OpenGL + imgui window drawing
 the live trajectory, landmark cloud, camera frustum, and the feature
 image (reference: xrslam-pc/player/src/main.cpp:12 visualizer.h and
-xrslam-pc/player/src/visualizer.cpp). A TPU pipeline runs headless on a
-pod host, so the native-window design is wrong here; the equivalent
+xrslam-pc/player/src/visualizer.cpp). An accelerator pipeline runs
+headless on a server, so the native-window design is wrong here; the equivalent
 capability is a zero-dependency web viewer: a stdlib HTTP server
 publishes the SLAM state as JSON + PNG and a self-contained HTML page
 (canvas software-3D, orbit controls, no external JS) renders it live in

@@ -36,9 +36,9 @@ def render_dataset(out_dir: str, n_frames: int = 60, n_landmarks: int = 500,
     landmark blob writes its camera z-depth in a small disc — the
     XRSLAMDepthImage input stream (XRSLAM.h:56-60)."""
     import jax.numpy as jnp
-    from PIL import Image
 
     from ..geometry import lie
+    from ..io import png
     from ..io.synthetic import euler_consistent, wave_scene
 
     W, H, F = width, height, focal
@@ -107,13 +107,12 @@ def render_dataset(out_dir: str, n_frames: int = 60, n_landmarks: int = 500,
         tns = T0 + int(round(ts[i] * 1e9))
         fn = f"{tns}.png"
         img, dep = render(i)
-        Image.fromarray((img * 255).astype(np.uint8)).save(
-            os.path.join(root, "cam0", "data", fn))
+        png.write_gray(os.path.join(root, "cam0", "data", fn),
+                       (img * 255).astype(np.uint8))
         cam_rows.append(f"{tns},{fn}")
         if with_depth:
-            Image.fromarray(
-                np.clip(dep * 1000.0, 0, 65535).astype(np.uint16)).save(
-                os.path.join(root, "depth0", "data", fn))
+            png.write_gray(os.path.join(root, "depth0", "data", fn),
+                           np.clip(dep * 1000.0, 0, 65535).astype(np.uint16))
             dep_rows.append(f"{tns},{fn}")
     with open(os.path.join(root, "cam0", "data.csv"), "w") as f:
         f.write("\n".join(cam_rows) + "\n")

@@ -24,7 +24,7 @@ import time
 
 import numpy as np
 
-from .. import api
+from .. import api, runtime
 from ..config import Config, load_config
 from ..eval import trajectory as traj
 from ..io.dataset import DataType, create_reader, load_euroc_groundtruth
@@ -116,6 +116,7 @@ def main(argv=None):
                     help="serve the interactive live viewer (trajectory/"
                          "landmarks/frustum/feature overlay) on PORT")
     args = ap.parse_args(argv)
+    runtime.configure()
 
     if args.slam_config and args.device_config:
         config = load_config(args.slam_config, args.device_config)

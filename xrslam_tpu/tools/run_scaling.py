@@ -4,7 +4,7 @@ Measures batched sliding-window solve throughput (windows/s) on
 1/2/4/8-device meshes and reports parallel efficiency vs the 1-device
 rate. The reference has no distributed path at all (its Ceres solve is
 single-threaded, xrslam/src/xrslam/estimation/solver.cpp:176-190);
-this harness quantifies the TPU-native scale-out design of
+this harness quantifies the scale-out design of
 `xrslam_tpu.parallel.sharded` (BASELINE.json north-star: frames/s
 scaling efficiency at 1 chip / N devices).
 

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing at all (SURVEY.md §5 — its only
 persisted outputs are trajectory files); long-lived batched/distributed
-runs on TPU need restartability, so this module serializes everything
+runs on accelerators need restartability, so this module serializes everything
 the online system owns: the tracker and window maps (frames, tracks,
 landmarks, tags), the marginalization prior (sqrt-inv-cov, info vector,
 linearization point), IMU buffers, forward-propagation state, PRNG
